@@ -1,10 +1,9 @@
 """Row-batched sorting: many independent small sorts at once.
 
-The TPU analog of the reference's per-bucket parallel recursion
+The XLA analog of the reference's per-bucket parallel recursion
 (reference: sorter.rs:121-139 — 256 sub-buckets dispatched to the rayon
-pool): batching rows keeps the sorting network's depth at log^2(row)
-instead of log^2(total), measured ~4x faster per element at 4096x4096
-(scripts/probe7.py), with per-row top_k another 1.7x (scripts/probe10.py).
+pool): one batched sort along the last axis, and a per-row top_k where
+only the first k are wanted.
 """
 import numpy as np
 

@@ -1,9 +1,9 @@
 """Distributed table pipeline over a device mesh (BASELINE config 5).
 
 Global sort, filter, group-aggregate, and a co-partitioned join — the
-pod-scale generalization of the reference's bucket-exchange algorithms
+multi-device generalization of the reference's bucket-exchange algorithms
 (reference: recombinating_sort.rs, regions_sort.rs; SURVEY.md §2.3/§7).
-Runs on any mesh: real TPU chips over ICI, or a virtual CPU mesh
+Runs on any mesh: the GPUs of a host, or a virtual CPU mesh
 (XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu).
 """
 import numpy as np

@@ -2,7 +2,7 @@
 partial-key, and interleaved-byte orderings via hand-written RadixKey
 impls).
 
-The TPU equivalent of implementing ``RadixKey`` by hand is constructing
+The equivalent of implementing ``RadixKey`` by hand is constructing
 normalized word planes yourself: any uint32 planes whose ascending
 lexicographic order is your desired order can drive the engine directly.
 """

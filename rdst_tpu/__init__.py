@@ -1,9 +1,9 @@
-"""rdst_tpu — a TPU-native vectorized sort-and-partition execution engine.
+"""rdst_tpu — a vectorized sort-and-partition execution engine on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 reference hybrid radix sort library (nessex/rdst): multi-pass LSB/MSB radix
 sorting of integer/float/byte-array/composite keys with pluggable tuners,
-generalized to distributed (multi-chip mesh) shuffle sorts and a columnar
+generalized to distributed (multi-device mesh) shuffle sorts and a columnar
 table engine (sort / filter / aggregate / join).
 
 Public API mirrors the reference surface (reference: src/radix_sort.rs:4-19,

@@ -84,7 +84,7 @@ class RadixSortBuilder:
         self._tuner = tuner
         return self
 
-    # -- TPU-build extensions --
+    # -- extensions beyond the reference builder --
 
     def with_stable(self, stable: bool = True) -> "RadixSortBuilder":
         """Stable ordering (the reference's LSB family is stable,
@@ -256,9 +256,8 @@ def _encode_payload(p, *, allow_narrow: bool = False):
     Payloads ride through radix scatters as opaque words (the reference
     moves whole structs; SortValue is Copy, sort_value.rs:5-13).
 
-    ``allow_narrow=True`` keeps <=16-bit payloads as uint16 operands — a
-    sorting-network rider's cost is proportional to its width (probe12
-    P4: a u16 rider costs ~half a u32 rider). Only the single-chip sort
+    ``allow_narrow=True`` keeps <=16-bit payloads as uint16 operands, so
+    the sort moves half the bytes for them. Only the single-device sort
     path opts in; the distributed exchange assumes uint32 planes (its pad
     word is 0xFFFFFFFF).
     """
@@ -342,11 +341,9 @@ def argsort(keys_arr, *, stable: bool = True):
 
     Stable mode sorts UNSTABLY on the composite (key, iota): the iota
     field makes the order strict, so the unique result IS the stable
-    permutation and the iota comes back as the answer.  That carries one
-    plane fewer than a stable sort with an iota payload (the engine's
-    stability machinery would add its own index plane on the fused path,
-    and lax.sort's stable flag costs ~2.2x per operand — probe12/probe22),
-    so stable argsort rides the cheapest possible encoding of itself.
+    permutation and the iota comes back as the answer.  The sort needs
+    no stability guarantee, so stable argsort rides the cheapest
+    encoding of itself.
     """
     n = _length_of(keys_arr)
     fields = (

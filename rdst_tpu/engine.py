@@ -6,11 +6,11 @@ is the fully-jittable path used inside larger jitted programs (distributed
 shuffle, table ops, benchmarks): the plan is chosen statically, at trace
 time, from host-side histogram counts if the caller has them.
 
-``sort_words`` is the single-chip workhorse. Plans:
+``sort_words`` is the single-device workhorse. Plans:
 
   auto         - packed level compaction when ``counts`` allow it
-                 (sorts/lsb.py), else the comparative network
-  comparative  - XLA variadic sorting network (sorts/comparative.py)
+                 (sorts/lsb.py), else the comparative sort
+  comparative  - XLA variadic lax.sort (sorts/comparative.py)
   packed       - force level compaction (requires ``counts``)
   bucketed     - MSB partition + batched per-bucket sorts (requires
                  ``counts``; sorts/msb.py)

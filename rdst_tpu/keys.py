@@ -1,6 +1,6 @@
 """Key normalization: map every supported key dtype to sortable unsigned bit planes.
 
-This is the TPU-native equivalent of the reference's ``RadixKey`` trait
+This is the equivalent of the reference's ``RadixKey`` trait
 (reference: src/radix_key.rs:1-21, src/radix_key_impl.rs:1-185). Where the
 reference extracts one byte at a time per element (``get_level``), we normalize
 whole arrays ONCE into a list of uint32 "words" (most-significant word first)
@@ -22,8 +22,10 @@ Semantics matched exactly:
     field first (generalizes examples/impl_radix_key.rs and the struct_sort
     bench's derived keys).
 
-All arithmetic is uint32 — TPU vector units have no 64-bit lanes, so every
-key wider than 4 bytes becomes multiple uint32 words.
+All arithmetic is uint32: every key wider than 4 bytes becomes multiple
+uint32 words. The format was chosen for the TPU's 32-bit vector lanes,
+which this engine first targeted; whether the GPU prefers packed 64-bit
+keys is tracked in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -87,9 +89,9 @@ class NormalizedKeys:
 
         Equivalent of ``RadixKey::get_level(level)`` (radix_key.rs:2-4) but
         vectorized over the whole batch. ``bits`` may be 8 (one byte, the
-        reference's radix) or 16 (two adjacent bytes fused — wider digits let
-        the TPU engine halve the number of passes; the byte pair never
-        straddles a word boundary because words hold 4 bytes).
+        reference's radix) or 16 (two adjacent bytes fused — wider digits
+        halve the number of passes; the byte pair never straddles a word
+        boundary because words hold 4 bytes).
         """
         return digit_plane(self.words, level, bits)
 
@@ -129,8 +131,7 @@ def _split_u64(u) -> tuple[jax.Array, jax.Array]:
     """Split a uint64 array into (hi, lo) uint32 words.
 
     64-bit numpy inputs are split on the host so the framework works without
-    ``jax_enable_x64`` (TPU vector lanes are 32-bit anyway; 64-bit keys only
-    ever exist at the API boundary).
+    ``jax_enable_x64`` (64-bit keys only ever exist at the API boundary).
     """
     if isinstance(u, np.ndarray):
         hi = jnp.asarray((u >> np.uint64(32)).astype(np.uint32))

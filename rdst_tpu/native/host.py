@@ -1,8 +1,9 @@
 """ctypes bindings for the native host runtime (librdst_host.so).
 
-Builds the shared library on first use if the toolchain is present;
-falls back to numpy implementations otherwise (tests assert behavioral
-equivalence between both paths).
+Runs ``make`` on first use, so the loaded library is always built from
+the committed ``rdst_host.cpp`` (a no-op when it is up to date); falls back
+to numpy implementations when the toolchain is missing (tests assert
+behavioral equivalence between both paths).
 """
 from __future__ import annotations
 
@@ -32,16 +33,15 @@ def _load():
         if _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_LIB_PATH):
-            try:
-                subprocess.run(
-                    ["make", "-C", _DIR],
-                    check=True,
-                    capture_output=True,
-                    timeout=120,
-                )
-            except Exception:
-                return None
+        try:
+            subprocess.run(
+                ["make", "-C", _DIR],
+                check=True,
+                capture_output=True,
+                timeout=120,
+            )
+        except (OSError, subprocess.SubprocessError):
+            return None
         try:
             lib = ctypes.CDLL(_LIB_PATH)
         except OSError:

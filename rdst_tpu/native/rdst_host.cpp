@@ -2,12 +2,11 @@
 //
 // C++ counterpart of the runtime-side work the reference does in native
 // code (the reference is a pure-native library; SURVEY.md §2 requires the
-// TPU build's host components to be native too). Two services:
+// accelerator build's host components to be native too). Two services:
 //
 //   1. host_radix_sort_u32 / u64[_pairs]: multi-threaded stable LSD radix
 //      sort of host-resident data — the host-side oracle for device
-//      results and the small-input fast path (63x lower latency than the
-//      device round trip at 100K). Same algorithmic structure as the
+//      results and the small-input fast path. Same algorithmic structure as the
 //      reference's MtLsb (per-tile histograms, bucket-major/tile-minor
 //      offsets, private scatter ranges, no atomics —
 //      mt_lsb_sort.rs:40-133).

@@ -1,18 +1,15 @@
-"""Multi-level digit histograms with fused sortedness detection (Pallas).
+"""Multi-level digit histograms with sortedness detection (plain XLA).
 
-TPU-native re-design of the reference's counting primitives (reference:
+Re-design of the reference's counting primitives (reference:
 src/sort_utils.rs:35-249 — ``get_counts_with_ends`` fuses the histogram scan
 with monotonicity detection; ``get_tile_counts`` computes per-tile histograms
 and merges cross-tile boundary sortedness; ``aggregate_tile_counts`` sums).
 
-Key TPU insight the reference cannot exploit: a digit plane's *global*
-histogram is permutation-invariant, so ONE streaming pass over the input at
-plan time yields the histograms of EVERY level simultaneously — the
-reference must re-count per level (lsb_sort.rs:62-83). Only per-tile
-histograms (used for scatter offsets) and sortedness change between passes.
-
-Layout: digits live on the lane axis as (1, C) rows; bins on sublanes as
-(R, 1) iota. The one-hot compare is a (R, C) broadcast — no transposes.
+A digit plane's *global* histogram is permutation-invariant, so one
+jitted call at plan time yields the histograms of EVERY level — the
+reference re-counts per level (lsb_sort.rs:62-83). Each level is a digit
+shift and mask that XLA fuses into a scatter-add, plus an adjacent
+compare for sortedness.
 """
 from __future__ import annotations
 
@@ -22,13 +19,10 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from rdst_tpu import config
+from rdst_tpu.keys import digit_plane
 
 RADIX = 256
-_CHUNK = 2048  # lanes per inner step; (256, 2048) i32 one-hot = 2 MiB VMEM
 
 __all__ = ["HistogramResult", "multi_level_histogram", "level_histogram"]
 
@@ -67,151 +61,45 @@ class HistogramResult:
         return bool(self.level_sorted.all())
 
 
-def _choose_tiling(n: int, n_words: int = 1) -> tuple[int, int]:
-    """(num_tiles, tile_size) with tile a CHUNK multiple.
-
-    Bigger tiles amortize grid overhead; the cap keeps the double-buffered
-    VMEM input blocks (tile * n_words * 4B * 2) plus one-hot temporaries
-    within the ~16 MiB scoped-vmem budget (observed OOM at 50M x 2 words
-    with 1M tiles: 17.94M > 16M).
-    """
-    vmem_budget = 6 << 20  # bytes for input blocks
-    tile_cap = max(_CHUNK, (vmem_budget // (8 * max(n_words, 1))) // _CHUNK
-                   * _CHUNK)
-    tile = _CHUNK
-    while tile * 64 < n and tile * 2 <= tile_cap:
-        tile *= 2
-    num = -(-n // tile)
-    return num, tile
+#: Partial histograms per level: element ``i`` counts into row
+#: ``i % _ROWS``, so neighbouring elements (one GPU warp) add into
+#: different counters. A single 256-bin scatter serialises its atomics on
+#: the hot bins of skewed, sorted or all-equal inputs.
+_ROWS = 1024
 
 
-def _hist_kernel(*refs, shifts, tile, n_words, word_of_level):
-    """Grid step = one tile. refs = word planes..., hist_ref, aux_ref.
-
-    hist_ref: (1, RADIX, L) int32 (bins on sublanes, level on lanes — no
-    relayout from the (RADIX, CHUNK) one-hot reduction); aux_ref: (1, 8, L)
-    int32 with rows [sorted, first_digit, last_digit, 0...].
-    """
-    plane_refs = refs[:n_words]
-    hist_ref, aux_ref = refs[n_words], refs[n_words + 1]
-    L = len(shifts)
-    nchunks = tile // _CHUNK
-    bins = jax.lax.broadcasted_iota(jnp.int32, (RADIX, 1), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, _CHUNK), 1)
-    # per-level digit of the tile's first element, as a (1,1) vector — Mosaic
-    # forbids scalar VMEM stores, so everything stays a small vector.
-    sub8 = jax.lax.broadcasted_iota(jnp.int32, (8, 1), 0)
-
-    def body(c, carry):
-        hists, oks, prev_lasts = carry
-        new_h, new_ok, new_last = [], [], []
-        for l in range(L):
-            w = plane_refs[word_of_level[l]][0, :, pl.ds(c * _CHUNK, _CHUNK)]
-            d = jnp.right_shift(w, np.uint32(shifts[l])).astype(jnp.int32) & 0xFF
-            oh = (bins == d).astype(jnp.int32)  # (RADIX, CHUNK)
-            new_h.append(
-                hists[l]
-                + jnp.sum(oh, axis=1, keepdims=True, dtype=jnp.int32)
-            )
-            prev = pltpu.roll(d, 1, 1)
-            nondec = jnp.all((d >= prev) | (lane == 0))
-            first = jnp.sum(
-                jnp.where(lane == 0, d, 0), dtype=jnp.int32
-            )
-            last = jnp.sum(
-                jnp.where(lane == _CHUNK - 1, d, 0), dtype=jnp.int32
-            )
-            ok = jnp.logical_and(
-                oks[l],
-                jnp.logical_and(
-                    nondec, jnp.logical_or(c == 0, first >= prev_lasts[l])
-                ),
-            )
-            new_ok.append(ok)
-            new_last.append(last)
-        return tuple(new_h), tuple(new_ok), tuple(new_last)
-
-    init = (
-        tuple(jnp.zeros((RADIX, 1), jnp.int32) for _ in range(L)),
-        tuple(jnp.bool_(True) for _ in range(L)),
-        tuple(jnp.int32(0) for _ in range(L)),
-    )
-    hists, oks, lasts = jax.lax.fori_loop(0, nchunks, body, init)
-    for l in range(L):
-        hist_ref[0, :, l : l + 1] = hists[l]
-        w0 = plane_refs[word_of_level[l]][0, :, pl.ds(0, _CHUNK)]
-        d0 = jnp.right_shift(w0, np.uint32(shifts[l])).astype(jnp.int32) & 0xFF
-        first_d = jnp.sum(jnp.where(lane == 0, d0, 0), dtype=jnp.int32)
-        row = (
-            oks[l].astype(jnp.int32) * (sub8 == 0).astype(jnp.int32)
-            + first_d * (sub8 == 1).astype(jnp.int32)
-            + lasts[l] * (sub8 == 2).astype(jnp.int32)
-        )
-        aux_ref[0, :, l : l + 1] = row
+def _digit(words, level: int) -> jax.Array:
+    """Byte ``level`` (0 = least significant) of every key, as int32."""
+    return digit_plane(words, level, 8).astype(jnp.int32)
 
 
-def _pad_tile_words(words, n, num, tile, pad_value=np.uint32(0xFFFFFFFF)):
-    total = num * tile
-    out = []
-    for w in words:
-        if total > n:
-            w = jnp.concatenate([w, jnp.full((total - n,), pad_value, w.dtype)])
-        out.append(w.reshape(num, 1, tile))
-    return out
+def _bincount(d: jax.Array) -> jax.Array:
+    """(256,) int32 counts of the digits in ``d``."""
+    n = d.shape[0]
+    rows = min(_ROWS, max(n, 1))
+    total = -(-n // rows) * rows
+    # pad slots index bin 256, which mode="drop" discards
+    d = jnp.pad(d, (0, total - n), constant_values=RADIX)
+    lane = jax.lax.broadcasted_iota(jnp.int32, (total // rows, rows), 1)
+    partial = jnp.zeros((rows, RADIX), jnp.int32).at[
+        lane, d.reshape(total // rows, rows)
+    ].add(1, mode="drop")
+    return jnp.sum(partial, axis=0)
 
 
-@functools.partial(jax.jit, static_argnames=("n_bytes", "n"))
-def _multi_level_device(words, n_bytes: int, n: int):
-    """Device part: (L, 256) int32 counts (pads excluded) + (L,) sorted."""
-    n_words = len(words)
-    num, tile = _choose_tiling(n, n_words)
-    tiled = _pad_tile_words(words, n, num, tile)
-    # level l: word index from the right, shift within word
-    word_of_level = tuple(n_words - 1 - (l // 4) for l in range(n_bytes))
-    shifts = tuple((l % 4) * 8 for l in range(n_bytes))
-    L = n_bytes
-    kernel = functools.partial(
-        _hist_kernel,
-        shifts=shifts,
-        tile=tile,
-        n_words=n_words,
-        word_of_level=word_of_level,
-    )
-    hist, aux = pl.pallas_call(
-        kernel,
-        grid=(num,),
-        in_specs=[
-            pl.BlockSpec((1, 1, tile), lambda t: (t, 0, 0),
-                         memory_space=pltpu.VMEM)
-            for _ in range(n_words)
-        ],
-        out_specs=[
-            pl.BlockSpec((1, RADIX, L), lambda t: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 8, L), lambda t: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((num, RADIX, L), jnp.int32),
-            jax.ShapeDtypeStruct((num, 8, L), jnp.int32),
-        ],
-        interpret=config.pallas_interpret(),
-    )(*tiled)
-    counts = jnp.sum(hist, axis=0).T  # (L, RADIX) — includes pads in bin 255
-    npad = num * tile - n
-    counts = counts.at[:, RADIX - 1].add(-npad)
-    # cross-tile sortedness merge (sort_utils.rs:80-99): all tiles sorted
-    # and boundaries nondecreasing. Pads are max digits at the tail — they
-    # never break monotonicity.
-    ok = jnp.all(aux[:, 0, :] == 1, axis=0)
-    bounds = jnp.all(aux[1:, 1, :] >= aux[:-1, 2, :], axis=0)
-    level_sorted = jnp.logical_and(ok, bounds)
-
-    # longest lexicographically-nondecreasing prefix over the FULL key:
-    # one elementwise pass + argmax, fused into this same jit so the
-    # planning fetch stays a single device round trip.  A strict descent
-    # at i means prefix length i+1.
-    gt = jnp.zeros((n - 1,), jnp.bool_) if n > 1 else jnp.zeros((0,), jnp.bool_)
+@functools.partial(jax.jit, static_argnames=("n_bytes",))
+def _multi_level_device(words, n_bytes: int):
+    """Device part: (L, 256) int32 counts, (L,) sorted flags, prefix."""
+    n = words[0].shape[0]
+    counts, level_sorted = [], []
+    for level in range(n_bytes):
+        d = _digit(words, level)
+        counts.append(_bincount(d))
+        level_sorted.append(jnp.all(d[1:] >= d[:-1]))
+    # longest lexicographically-nondecreasing prefix over the FULL key,
+    # in this same jit so the planning fetch stays one device round trip.
+    # A strict descent at i means prefix length i+1.
+    gt = jnp.zeros((max(n - 1, 0),), jnp.bool_)
     eq = jnp.ones_like(gt)
     for w in words:
         a, b = w[:-1], w[1:]
@@ -222,58 +110,24 @@ def _multi_level_device(words, n_bytes: int, n: int):
         prefix = jnp.where(jnp.any(gt), first_desc + 1, n).astype(jnp.int32)
     else:
         prefix = jnp.int32(n)
-    return counts, level_sorted, prefix
+    return jnp.stack(counts), jnp.stack(level_sorted), prefix
 
 
 def multi_level_histogram(words, n_bytes: int) -> HistogramResult:
-    """All-level histograms + sortedness in one streaming pass (host result).
+    """All-level histograms + sortedness in one jitted call (host result).
 
     The planning sync point: 256*L ints is tiny, and the reference pays the
     same host-visible cost when its tuner inspects counts (sorter.rs:55-76).
     """
-    n = int(words[0].shape[0])
-    counts, level_sorted, prefix = _multi_level_device(
-        tuple(words), n_bytes, n
-    )
-    counts_np, sorted_np, prefix_np = jax.device_get(
-        (counts, level_sorted, prefix)
+    counts, level_sorted, prefix = jax.device_get(
+        _multi_level_device(tuple(words), n_bytes)
     )
     return HistogramResult(
-        counts_np.astype(np.int64), sorted_np, int(prefix_np)
+        counts.astype(np.int64), np.asarray(level_sorted), int(prefix)
     )
 
 
+@functools.partial(jax.jit, static_argnames=("level",))
 def level_histogram(words, level: int) -> jax.Array:
-    """Single-level 256-bin histogram, stays on device. (L=1 kernel call.)"""
-    n = int(words[0].shape[0])
-    n_words = len(words)
-    widx = n_words - 1 - (level // 4)
-    shift = (level % 4) * 8
-    num, tile = _choose_tiling(n, 1)
-    tiled = _pad_tile_words((words[widx],), n, num, tile)
-    kernel = functools.partial(
-        _hist_kernel, shifts=(shift,), tile=tile, n_words=1,
-        word_of_level=(0,),
-    )
-    hist, _aux = pl.pallas_call(
-        kernel,
-        grid=(num,),
-        in_specs=[
-            pl.BlockSpec((1, 1, tile), lambda t: (t, 0, 0),
-                         memory_space=pltpu.VMEM)
-        ],
-        out_specs=[
-            pl.BlockSpec((1, RADIX, 1), lambda t: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 8, 1), lambda t: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((num, RADIX, 1), jnp.int32),
-            jax.ShapeDtypeStruct((num, 8, 1), jnp.int32),
-        ],
-        interpret=config.pallas_interpret(),
-    )(*tiled)
-    counts = jnp.sum(hist[:, :, 0], axis=0)
-    npad = num * tile - n
-    return counts.at[RADIX - 1].add(-npad)
+    """Single-level 256-bin histogram; stays on device."""
+    return _bincount(_digit(words, level))

@@ -2,15 +2,11 @@
 
 Primitive behind the low-memory chunked plan (the reference's Regions sort
 merges per-tile sorted runs, regions_sort.rs:206-262) and the distributed
-post-exchange combine. Merging two sorted length-m runs costs
-O(m log m) compare-exchange stages — ~20x cheaper than re-sorting the
-concatenation through the full sorting network.
+post-exchange combine. Merging two sorted length-m runs takes log2(2m)
+compare-exchange stages over the data.
 
-All data movement is static reshapes + elementwise min/max selects, which
-XLA fuses well on TPU — but each stage still materializes through HBM
-(probe12 P5), so on a real TPU large merges route through the Pallas
-fused kernels in ops/pallas_merge.py (one HBM round trip per large
-stride, then every stride <= block/2 in one VMEM-resident pass).
+All data movement is static reshapes + elementwise selects, one fused
+XLA pass through device memory per stage.
 """
 from __future__ import annotations
 
@@ -21,10 +17,6 @@ import jax.numpy as jnp
 import numpy as np
 
 __all__ = ["merge_sorted", "merge_many"]
-
-#: Below this total length the per-stage XLA selects win (kernel launch
-#: overhead dominates) and the Pallas path is skipped.
-_FUSED_MIN = 1 << 15
 
 
 def _lex_greater(keys_x, keys_y):
@@ -70,30 +62,7 @@ def merge_sorted(
         nk = nk + 1
 
     # bitonic: concat(a, reverse(b)) then log2(total) split stages
-    # (2D double-rev form: the flat [::-1] costs ~1.9 ns/el at 2^24 on
-    # TPU while this lowers near-bandwidth — probe18c/18d)
-    if lb % 128 == 0 and lb > 0:
-        from rdst_tpu.ops.pallas_merge import rev_fast
-
-        z = [
-            jnp.concatenate([pa, rev_fast(pb)])
-            for pa, pb in zip(planes_a, planes_b)
-        ]
-    else:
-        z = [
-            jnp.concatenate([pa, pb[::-1]])
-            for pa, pb in zip(planes_a, planes_b)
-        ]
-    from rdst_tpu.ops.pallas_merge import (
-        bitonic_merge_fused,
-        fused_merge_available,
-    )
-
-    if total >= _FUSED_MIN and fused_merge_available(z):
-        z = bitonic_merge_fused(z, nk)
-        if stable:
-            z = z[:n_keys] + z[n_keys + 1 :]
-        return z
+    z = [jnp.concatenate([pa, pb[::-1]]) for pa, pb in zip(planes_a, planes_b)]
     s = total // 2
     while s >= 1:
         zs = [p.reshape(total // (2 * s), 2, s) for p in z]

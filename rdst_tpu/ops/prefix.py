@@ -1,6 +1,6 @@
 """Prefix-sum / offset primitives.
 
-TPU equivalents of the reference's L1 offset helpers (reference:
+Equivalents of the reference's L1 offset helpers (reference:
 src/sort_utils.rs:10-31 ``get_prefix_sums`` / ``get_end_offsets``). These
 operate on tiny (R,) or (T, R) count tables, so plain XLA ``cumsum`` is
 already optimal — no kernel needed.

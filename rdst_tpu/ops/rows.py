@@ -2,12 +2,9 @@
 
 The reference parallelizes recursion across independent sub-buckets
 (reference: sorter.rs:121-139 — 256 sub-buckets dispatched to rayon via
-``par_bridge``). The TPU-native analog of "many small independent sorts"
-is a batched row sort: the sorting network's depth scales with log^2 of
-the ROW length, so 4096 rows of 4096 sort at ~0.5 ns/element vs ~2 ns for
-one flat sort of the same 16M elements (scripts/probe7.py), and a row-wise
-``top_k`` is another 1.7x faster than a full row sort (scripts/probe10.py,
-TPU-measured). These entry points expose that measured capability on the
+``par_bridge``). The XLA analog of "many small independent sorts" is a
+batched row sort along the last axis, and a row-wise ``lax.top_k`` where
+only the first ``k`` are wanted. These entry points expose both on the
 public surface for workloads that are already row-partitioned.
 
 Keys go through the same normalization as every other path
@@ -172,8 +169,7 @@ def batched_top_k(
 ):
     """Per-row top-``k`` by key order (``largest=False`` → bottom-k).
 
-    Single-word keys (≤32-bit dtypes) hit the TPU ``lax.top_k`` kernel
-    (measured 1.7x faster than a row sort, scripts/probe10.py); wider /
+    Single-word keys (≤32-bit dtypes) use ``lax.top_k``; wider /
     composite keys fall back to a row sort + slice. Results are returned
     in sorted order (descending for ``largest=True``). ``byte_keys``
     disambiguates uint8 inputs exactly as in :func:`batched_sort`.

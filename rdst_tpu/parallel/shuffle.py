@@ -1,10 +1,10 @@
 """Distributed MSB shuffle sort over a device mesh.
 
-The pod-scale generalization of the reference's bucket-exchange algorithms
+The multi-device generalization of the reference's bucket-exchange algorithms
 (reference: recombinating_sort.rs:44-112 two-barrier tile sort;
 regions_sort.rs:206-262 inter-region exchange; SURVEY.md §2.3): the
 keyspace is range-partitioned across devices by the most significant
-digits, every device exchanges buckets with every other over ICI/DCN, and
+digits, every device exchanges buckets with every other, and
 local sorts complete the order. Device-major concatenation of the outputs
 is the globally sorted sequence — the same bucket-major/tile-minor layout
 the reference uses for stability (mt_lsb_sort.rs:51-63), with devices
@@ -21,8 +21,9 @@ Pipeline (inside one ``jax.shard_map`` over the partition axis):
      multi-key buckets refine recursively — _refined_assignment; the
      skew signal family matches the tuners' ``count >= 2*len/256``
      rule, standard_tuner.rs:20-22),
-  4. ragged all-to-all exchange with exact per-destination sizes
-     (``jax.lax.ragged_all_to_all``), into fixed-capacity shards,
+  4. all-to-all exchange of the per-destination segments into
+     fixed-capacity shards (dense ``all_to_all`` by default, exact-size
+     ``jax.lax.ragged_all_to_all`` with ``use_ragged=True``),
   5. local merge-sort of the received segments.
 
 Static-shape constraint: outputs are ``capacity``-sized with a per-device
@@ -78,10 +79,10 @@ def make_mesh_2d(
     chips_per_host: int,
     axes: tuple[str, str] = ("host", "chip"),
 ) -> Mesh:
-    """Two-axis mesh: ``axes[0]`` spans hosts (DCN), ``axes[1]`` chips
-    within a host (ICI) — SURVEY.md §2.3's backend split.  On a real
-    multi-host pod ``jax.devices()`` enumerates process-major, so the
-    row-major (H, C) reshape puts each host's chips on one ``chip`` row;
+    """Two-axis mesh: ``axes[0]`` spans hosts (the network between
+    hosts), ``axes[1]`` the devices within a host (NVLink).  On a
+    multi-host cluster ``jax.devices()`` enumerates process-major, so the
+    row-major (H, C) reshape puts each host's devices on one ``chip`` row;
     on a single host (or the virtual CPU mesh) the same shape exercises
     the hierarchical exchange code paths."""
     devs = jax.devices()[: n_hosts * chips_per_host]
@@ -94,30 +95,15 @@ def make_mesh_2d(
 
 def init_distributed(**kwargs) -> None:
     """Multi-process entry point: initialize the JAX distributed runtime
-    (one process per host; coordinator/process env discovery per
-    ``jax.distributed.initialize``).  Call once before building meshes on
-    a multi-host pod slice; a no-op when already initialized."""
+    (one process per host; pass ``coordinator_address``,
+    ``num_processes`` and ``process_id`` where the cluster does not
+    provide them).  Call once before building meshes on a multi-host
+    cluster; a no-op when already initialized."""
     try:
         jax.distributed.initialize(**kwargs)
     except RuntimeError as e:  # already initialized
         if "already" not in str(e):
             raise
-
-
-def _local_sort(planes, n_keys, stable):
-    """Per-device sort inside shard_map: the fused bitonic executor when
-    it is available for the shard's shape (TPU, >= 2^21 elements — a
-    real pod's resident shards), else ``lax.sort``.  Local sorts are the
-    compute half of the shuffle (the exchange is bandwidth), so they
-    inherit the single-chip executor's measured wins (BENCH_NOTES
-    round 3/4: 1.1-1.6x over the direct network at >= 2^21)."""
-    from rdst_tpu.ops.pallas_sort import fused_sort, fused_sort_available
-
-    words, payloads = list(planes[:n_keys]), list(planes[n_keys:])
-    if fused_sort_available(words, payloads, stable=stable):
-        out_w, out_p = fused_sort(words, payloads, stable=stable)
-        return tuple(out_w) + tuple(out_p)
-    return jax.lax.sort(tuple(planes), num_keys=n_keys, is_stable=stable)
 
 
 def _flat_index(axis) -> jax.Array:
@@ -215,9 +201,9 @@ def _local_shard_body(
 
     # 1. local stable sort by full key (payloads ride along)
     n_keys = n_send_words
-    sorted_all = list(
-        _local_sort(tuple(words_and_payloads), n_keys, stable)
-    )
+    sorted_all = list(jax.lax.sort(
+        tuple(words_and_payloads), num_keys=n_keys, is_stable=stable
+    ))
     # nondecreasing after the local sort (monotone function of the key)
     gmins, wshifts, wbits = _window_params(sorted_all[:n_keys], axis)
     buckets = _apply_window(sorted_all[:n_keys], gmins, wshifts, wbits)
@@ -242,7 +228,7 @@ def _local_shard_body(
 
     # 2b. single-key ("uniform") bucket detection. A bucket whose global
     # key set is ONE value can be split across devices at any rank without
-    # breaking sortedness — that's the pod-scale version of ska_sort's
+    # breaking sortedness — that's the multi-device version of ska_sort's
     # dominant-bucket special-casing (ska_sort.rs:52-65) and the fix for
     # degenerate/Zipf-hot keys that would otherwise overflow one device.
     # Detection: for every key word, the global min of per-device segment
@@ -498,7 +484,7 @@ def _hier_phase(
     if stable:
         ex_planes.append(jnp.full((n_local,), me, jnp.uint32))
 
-    # stage 1: host-contiguous blocks along the DCN axis. The
+    # stage 1: host-contiguous blocks along the host axis. The
     # intermediate buffer gets its own (larger) capacity: a chip's
     # stage-1 load is its column's share of the host's incoming data,
     # which skewed routing can push past the final balanced per-chip
@@ -515,12 +501,12 @@ def _hier_phase(
     route = jnp.where(
         valid1, dest1 % jnp.uint32(jnp.maximum(C, 1)), jnp.uint32(C)
     )
-    srt = _local_sort(tuple([route] + p1), 1, True)
+    srt = jax.lax.sort(tuple([route] + p1), num_keys=1, is_stable=True)
     routed = list(srt[1:])
     bounds = jnp.searchsorted(
         srt[0], jnp.arange(C + 1, dtype=jnp.uint32), side="left"
     ).astype(jnp.int32)
-    # routed length is stage1_cap (ragged) or H*stage1_cap (dense emu)
+    # routed length is stage1_cap (ragged) or H*stage1_cap (dense)
     p2, valid2, n2 = _exchange_raw(
         routed, bounds[:-1], bounds[1:] - bounds[:-1], capacity,
         use_ragged, chip_ax, C, c_me, routed[0].shape[0],
@@ -537,8 +523,9 @@ def _hier_phase(
         sort_planes = [validity] + out
         nk_sort = 1 + n_keys
     finished = [
-        p[:capacity] for p in _local_sort(tuple(sort_planes), nk_sort,
-                                          stable)
+        p[:capacity] for p in jax.lax.sort(
+            tuple(sort_planes), num_keys=nk_sort, is_stable=stable
+        )
     ]
     # the reported count is the FINAL receive count (n2); a stage-1
     # intermediate overflow (n1 > stage1_cap: rows were dropped) poisons
@@ -555,10 +542,10 @@ def _hier_exchange_and_finish(
 
     The flat destination order is host-major, so each destination HOST's
     send data is one contiguous block: stage 1 moves host blocks along
-    the host (DCN) axis between same-index chips — every DCN message is
-    a single contiguous per-host block, the layout SURVEY §2.3 prescribes
-    for the cross-slice hop.  Stage 2 regroups locally by destination
-    chip (a stable route sort) and exchanges along the chip (ICI) axis.
+    the host axis between same-index devices — every message between
+    hosts is a single contiguous per-host block.  Stage 2 regroups
+    locally by destination device (a stable route sort) and exchanges
+    along the chip axis, within a host (NVLink).
 
     Exactness under rank-splitting: the flat destination of every element
     is computed ONCE on the source device (a searchsorted staircase over
@@ -574,7 +561,7 @@ def _hier_exchange_and_finish(
     two-stage exchange in phase 1, the rest in phase 2, and phase 1's
     local sort can hide under phase 2's collectives (the same
     sender-half pipelining as the 1-axis path).  The two sorted capacity
-    buffers combine with the fused bitonic merge on (validity, keys);
+    buffers combine with the bitonic merge on (validity, keys);
     phase-1 senders all precede phase-2 senders in flat order and the
     merge's a-side wins ties, so stable mode survives (each phase's
     output is already in (key, source, arrival) order internally).
@@ -635,7 +622,7 @@ def _exchange_and_finish(
     planes, n_keys, input_offsets, send_sizes, capacity, stable,
     use_ragged, axis, D, me, n_local, overlap=False, stage1_cap=None,
 ):
-    """Ragged all-to-all of contiguous send segments + local re-sort.
+    """All-to-all of contiguous send segments + local re-sort.
 
     ``planes``: locally key-sorted word+payload planes; segment for
     destination d is ``[input_offsets[d], input_offsets[d]+send_sizes[d])``.
@@ -649,7 +636,7 @@ def _exchange_and_finish(
     collectives let the phase-1 sort hide under the phase-2 all-to-all
     (SURVEY §7 step 6; the reference's scanning workers stream counts
     while scattering, scanning_sort.rs:91-218).  The two sorted halves
-    combine with the fused bitonic merge (ops/merge.py), which keeps the
+    combine with the bitonic merge (ops/merge.py), which keeps the
     sender order on ties, so stable mode is preserved: phase-1 senders
     all precede phase-2 senders, and the merge's a-side wins ties.
     Single-chip semantics are identical to the sequential path (parity
@@ -712,8 +699,9 @@ def _exchange_once(
         me, n_local,
     )
     validity = jnp.where(valid_mask, np.uint32(0), np.uint32(1))
-    resorted = _local_sort(
-        tuple([validity] + list(out_planes)), 1 + n_keys, stable
+    resorted = jax.lax.sort(
+        tuple([validity] + list(out_planes)), num_keys=1 + n_keys,
+        is_stable=stable,
     )
     return [p[:capacity] for p in resorted], n_valid
 
@@ -722,8 +710,9 @@ def _finish_sort(out_planes, valid_mask, n_keys, capacity, stable):
     # local sort of received data; a leading validity plane keeps pads
     # behind any real all-ones keys, then truncate to capacity.
     validity = jnp.where(valid_mask, np.uint32(0), np.uint32(1))
-    resorted = _local_sort(
-        tuple([validity] + list(out_planes)), 1 + n_keys, stable
+    resorted = jax.lax.sort(
+        tuple([validity] + list(out_planes)), num_keys=1 + n_keys,
+        is_stable=stable,
     )
     return [p[:capacity] for p in resorted[1:]]
 
@@ -737,10 +726,7 @@ def _exchange_raw(
     if D == 1:
         # degenerate 1-device axis: the exchange is an identity (the
         # single send segment covers the whole resident shard at offset
-        # 0).  Skipping the collective both saves work and sidesteps a
-        # measured size-dependent libtpu runtime fault in 1-device
-        # ragged_all_to_all (works <= 2^20, "TPU backend error
-        # (Internal)" at 2^22 — round 4, lax and fused locals alike).
+        # 0), so the collective is skipped.
         tail = capacity - n_local
         out_planes = [
             jnp.concatenate(
@@ -765,23 +751,12 @@ def _exchange_raw(
         axis=0,
     )  # (D,) per destination
 
-    # exchange per plane. TPU: exact ragged all-to-all over ICI. CPU
-    # (tests / dryrun): XLA:CPU lacks ragged-all-to-all, so emulate with a
-    # dense all_to_all of worst-case fixed chunks (test-only memory cost).
-    from rdst_tpu import config
-
-    if (
-        config.use_remote_dma_exchange and not isinstance(axis, tuple)
-    ):
-        # EXPERIMENTAL kernel backend (SURVEY §5): chunked RDMA issued
-        # from inside a Pallas kernel; see parallel/remote_dma.py for
-        # the gating and verification status
-        from rdst_tpu.parallel.remote_dma import remote_dma_exchange
-
-        return remote_dma_exchange(
-            planes, input_offsets, send_sizes, size_matrix, capacity,
-            axis, D, me,
-        )
+    # exchange per plane. The default is the dense all_to_all of
+    # worst-case ``capacity`` chunks per sender, which moves and allocates
+    # about D times the bytes needed. ``use_ragged=True`` sends exact-size
+    # segments with ``ragged_all_to_all`` (NCCL on GPUs); it is opt-in
+    # because a repeated call on four GPUs returned wrong rows, and
+    # XLA:CPU has no lowering for it (tests emulate the primitive).
     n_valid = jnp.sum(recv_sizes)
     if use_ragged:
         out_planes = []
@@ -885,7 +860,9 @@ def _partition_body(
     # local sort by (bucket, key): send segments must be bucket-contiguous
     # even where window saturation breaks key-monotonicity of the bucket
     # map (out-of-range keys of a foreign window)
-    srt = _local_sort(tuple([buckets0] + planes), 1 + n_keys, stable)
+    srt = jax.lax.sort(
+        tuple([buckets0] + planes), num_keys=1 + n_keys, is_stable=stable
+    )
     buckets = srt[0]
     planes_sorted = list(srt[1:])
     boundary = jnp.searchsorted(buckets, dev_start, side="left").astype(
@@ -938,7 +915,7 @@ def partition_exchange(
     axis: str = "shard",
     capacity_factor: float = 1.5,
     stable: bool = False,
-    use_ragged: bool | None = None,
+    use_ragged: bool = False,
     overlap_exchange: bool = False,
 ):
     """Route rows to devices by an EXISTING partition (co-partitioning).
@@ -974,8 +951,6 @@ def partition_exchange(
     arrs = tuple(words) + tuple(payloads)
     sharding = NamedSharding(mesh, P(axis))
     arrs = tuple(jax.device_put(a, sharding) for a in arrs)
-    if use_ragged is None:
-        use_ragged = jax.default_backend() == "tpu"
     stage1_cap = max(
         int(np.ceil(capacity * config.hier_stage1_headroom)), capacity
     )
@@ -997,7 +972,7 @@ def distributed_sort(
     stable: bool = False,
     split_uniform: bool = True,
     return_partition: bool = False,
-    use_ragged: bool | None = None,
+    use_ragged: bool = False,
     overlap_exchange: bool = False,
 ):
     """Sort globally over a mesh axis.
@@ -1017,9 +992,13 @@ def distributed_sort(
     phases so the first half's local sort hides under the second half's
     collective (see _exchange_and_finish) — bitwise-identical output.
 
+    ``use_ragged=True`` swaps the dense all_to_all for the exact-size
+    ``ragged_all_to_all`` (see _exchange_raw for why it is opt-in).
+
     A 2-axis mesh (``make_mesh_2d``) with ``axis=mesh.axis_names`` runs
     the hierarchical (host, chip) exchange: contiguous per-host blocks
-    over DCN, then an intra-host ICI regroup (_hier_exchange_and_finish).
+    between hosts, then a regroup within each host
+    (_hier_exchange_and_finish).
     ``overlap_exchange`` there splits by sender-host half (no-op pipelined
     into a single phase when the host axis has one device).
     """
@@ -1035,8 +1014,6 @@ def distributed_sort(
     arrs = tuple(words) + tuple(payloads)
     sharding = NamedSharding(mesh, P(axis))
     arrs = tuple(jax.device_put(a, sharding) for a in arrs)
-    if use_ragged is None:
-        use_ragged = jax.default_backend() == "tpu"
     from rdst_tpu import config
 
     stage1_cap = max(
@@ -1075,8 +1052,8 @@ def distributed_sort_auto(
     DOUBLES the factor until every device fits or ``max_capacity_factor``
     is exceeded. Each retry recompiles (capacity is a static shape), so
     callers with a known skew bound should size ``capacity_factor``
-    directly; measured overflow incidence per distribution is tabled in
-    BENCH_NOTES (scripts/capacity_study.py).
+    directly; scripts/capacity_study.py counts each distribution's demand
+    and overflow on the CPU mesh.
     """
     f = capacity_factor
     D = mesh.devices.size

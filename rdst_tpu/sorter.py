@@ -1,10 +1,10 @@
 """Sorter: the dispatch layer routing a sort to an execution plan.
 
-TPU re-design of the reference's recursive router (reference:
+Re-design of the reference's recursive router (reference:
 src/sorter.rs:10-171). The reference recurses per 256-bucket with
-data-dependent shapes — that cannot jit. Instead the TPU sorter:
+data-dependent shapes — that cannot jit. Instead the sorter:
 
-  1. computes ALL levels' histograms + sortedness in one streaming kernel
+  1. computes ALL levels' histograms + sortedness in one jitted call
      (the reference re-scans per level/bucket — sorter.rs:50-55),
   2. short-circuits fully-sorted inputs (sorter.rs:59-65),
   3. asks the pluggable Tuner for an Algorithm using the top level's counts
@@ -143,7 +143,7 @@ class Sorter:
             # presorted-input advantage (lsb_sort.rs:62-83's runtime skip,
             # struct_sort.rs:43-127's 90%-presorted regime): keep the
             # sorted prefix, run the plan on the suffix only, then
-            # bitonic-merge the halves near-bandwidth (ops/merge.py).
+            # bitonic-merge the halves (ops/merge.py).
             self._trace(L - 1, f"PresortedMerge[{algo.value}]", n)
             out_words, out_payloads = _presorted_merge(
                 words, payloads, split, plan, ctx, stable
@@ -249,26 +249,23 @@ def _presorted_merge(words, payloads, split, plan, ctx, stable):
 def _register_default_plans():
     """Populate the plan registry (lazy imports avoid cycles).
 
-    Mapping of the reference's eight algorithms onto the four TPU plan
+    Mapping of the reference's eight algorithms onto the four plan
     families. The tuners pick the same Algorithm NAMES at the same
     thresholds as the reference (tuner.py); this table decides what each
-    name EXECUTES on TPU and is measurement-driven (scripts/probe9.py,
-    BENCH_NOTES.md):
+    name EXECUTES:
 
-      COMPARATIVE          -> variadic sorting network (lax.sort)
+      COMPARATIVE          -> variadic lax.sort
       LSB, MT_LSB          -> level-compacted stable sort (sorts/lsb.py)
       LR_LSB, SKA          -> same compaction, skew/low-entropy regime
                               (unstable allowed for SKA, like the
                               reference's in-place ska)
       RECOMBINATING,
-      SCANNING             -> the reference's large-uniform picks; on TPU
-                              the measured-fastest dense plan is the
-                              network (0.91 ns/el vs 4.7 for the padded
-                              bucket pipeline at uniform 10M), entered
-                              through the level-compaction pre-pass
-                              (packed_sort falls back to the plain network
-                              when nothing compacts, and narrows/drops
-                              words when the histogram allows)
+      SCANNING             -> the reference's large-uniform picks: the
+                              dense lax.sort, entered through the
+                              level-compaction pre-pass (packed_sort falls
+                              back to the plain sort when nothing
+                              compacts, and narrows/drops words when the
+                              histogram allows)
       MT_OOP               -> MSB bucketed partition + batched bucket
                               sorts + ragged writeback (sorts/msb.py) —
                               kept as the explicitly requestable bucketed
@@ -303,13 +300,13 @@ def _register_default_plans():
     def regions_plan(words, payloads, ctx: PlanContext):
         # The reference's Regions is a resource policy, not a speed play
         # (regions_sort.rs:3-10). Engage the chunked low-memory machinery
-        # only under real memory pressure; otherwise Regions' tuner regime
-        # (large skewed/low-entropy inputs) executes the measured-fastest
-        # plan for that regime — level compaction (probe12 P5: the XLA
-        # bitonic merge tree costs ~3.5x a direct network sort).
+        # only under real memory pressure (config.low_mem_threshold);
+        # otherwise Regions' tuner regime (large skewed/low-entropy
+        # inputs) runs level compaction, which skips the merge tree's
+        # extra passes.
         n = int(words[0].shape[0])
         working_set = n * (len(words) + len(payloads)) * 4
-        if working_set < config.low_mem_threshold_bytes:
+        if working_set < config.low_mem_threshold():
             counts = ctx.hist.counts if ctx.hist is not None else None
             return packed_sort(words, payloads, counts, stable=ctx.stable)
         return chunked_sort(words, payloads, stable=ctx.stable)

@@ -1,13 +1,14 @@
-"""Sort execution plans — the TPU equivalents of the reference's eight
+"""Sort execution plans — the XLA equivalents of the reference's eight
 algorithms (reference: src/sorts/, SURVEY.md §2.2).
 
 Plan families and the Algorithm values they serve (see sorter.py):
 
-  comparative.py  — variadic sorting network        (Comparative)
-  lsb.py          — level-compacted stable sort     (Lsb, LrLsb, MtLsb)
+  comparative.py  — variadic lax.sort               (Comparative)
+  lsb.py          — level-compacted stable sort     (Lsb, LrLsb, MtLsb,
+                                                     Ska, Recombinating,
+                                                     Scanning)
   msb.py          — bucketed MSB partition + batched
-                    bucket sorts + DMA writeback    (Ska, MtOop,
-                                                     Recombinating, Scanning)
+                    bucket sorts + ragged writeback (MtOop)
   regions.py      — low-memory chunked + merge tree (Regions)
 """
 from rdst_tpu.sorts.comparative import comparative_sort

@@ -1,4 +1,4 @@
-"""Comparative sort plan: the dense sorting-network executor.
+"""Comparative sort plan: the dense executor, ``lax.sort``.
 
 Role-equivalent of the reference's comparison fallback (reference:
 src/sorts/comparative_sort.rs:5-51): the reference packs up to 16 radix
@@ -7,13 +7,8 @@ normalized word planes to the dense executor as multiple keys (most
 significant first).
 
 Unlike the reference (which only uses this for <=128 items, sorter.rs:35-38)
-this plan is usable at any size.  Below the fused crossover it is XLA's
-``lax.sort`` — the tuned TPU sorting network and the correctness anchor for
-every other plan.  At large sizes it routes through the reversal-free fused
-bitonic executor (ops/pallas_sort.py): phase-0 chunk rows sort in one
-batched network call with alternating directions, then parity-masked
-Pallas merge levels run near HBM bandwidth, beating the flat network's
-log^2(n) growth (probe18c/probe19).
+this plan is usable at any size: it is XLA's ``lax.sort`` and the
+correctness anchor for every other plan.
 """
 from __future__ import annotations
 
@@ -32,11 +27,6 @@ def comparative_sort(
 ) -> tuple[list[jax.Array], list[jax.Array]]:
     """Sort word planes (most significant first) + payloads."""
     words = list(words)
-    payloads = list(payloads)
-    from rdst_tpu.ops.pallas_sort import fused_sort, fused_sort_available
-
-    if fused_sort_available(words, payloads, stable=stable):
-        return fused_sort(words, payloads, stable=stable)
     operands = tuple(words) + tuple(payloads)
     out = jax.lax.sort(operands, num_keys=len(words), is_stable=stable)
     return list(out[: len(words)]), list(out[len(words):])

@@ -1,12 +1,12 @@
 """LSB-family plans: stable sorts with histogram-driven level compaction.
 
-TPU re-design of the reference's LSB algorithms (reference:
+Re-design of the reference's LSB algorithms (reference:
 src/sorts/lsb_sort.rs:39-127 ``Lsb``, src/sorts/out_of_place_sort.rs
 ``LrLsb``). The reference's defining LSB optimizations are *level
 skipping* (don't sort already-ordered or constant byte planes,
 lsb_sort.rs:62-83) and skew awareness (LrLsb is picked under digit skew,
-standard_tuner.rs:26-33). On TPU a sorting-network pass costs per
-*operand array*, not per byte, so the equivalent optimization is **level
+standard_tuner.rs:26-33). A ``lax.sort`` pass costs per *operand
+array*, not per byte, so the equivalent optimization is **level
 compaction**: byte levels whose histogram is a single spike are constants
 — drop them and repack the varying bytes into the fewest uint32 words,
 then run one stable variadic sort over the packed words. Constant bytes
@@ -57,9 +57,8 @@ def _pack_levels(words: Sequence[jax.Array], varying: list[int]):
     """Pack the varying byte levels (MSB-first) into tight words.
 
     The most significant packed word narrows to uint16 when it holds <= 2
-    bytes: a sorting-network operand's cost is proportional to its WIDTH
-    (measured: a u16 rider costs ~half a u32 rider, scripts/probe12.py P4),
-    so a 6-byte key rides as (u16, u32) instead of (u32, u32).
+    bytes, so a 6-byte key rides as (u16, u32) instead of (u32, u32) and
+    the sort moves fewer bytes.
     """
     vb = len(varying)
     n_packed = max(1, -(-vb // 4))
@@ -131,8 +130,6 @@ def packed_sort(
         # nothing to compact and no width to shave
         return comparative_sort(words, payloads, stable=stable)
     packed = _pack_levels(words, varying)
-    # route through comparative_sort so large packed sorts take the
-    # fused bitonic executor (ops/pallas_sort.py) when available
     out_packed, out_payloads = comparative_sort(
         packed, payloads, stable=stable
     )

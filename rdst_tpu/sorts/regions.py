@@ -1,15 +1,15 @@
 """Regions plan: low-memory chunked sort with a bitonic merge tree.
 
-TPU re-design of the reference's low-memory algorithms — ``Regions``
+Re-design of the reference's low-memory algorithms — ``Regions``
 (Obeya et al. SPAA'19 in-place parallel radix: per-tile in-place sorts,
 then an inter-region swap graph, regions_sort.rs:206-262) and the
 low-memory role of ``Ska``. True in-place swaps don't exist in XLA's
-functional model; the TPU equivalent of "sort big data without 2x+
+functional model; the equivalent of "sort big data without 2x+
 workspace" is to bound the *peak temporary footprint*:
 
   1. split the input into k equal chunks,
-  2. sort each chunk separately (the sorting network's workspace scales
-     with the chunk, not the whole array — peak extra ~2n/k),
+  2. sort each chunk separately (the sort's workspace scales with the
+     chunk, not the whole array — peak extra ~2n/k),
   3. merge with a bitonic merge tree (ops/merge.py) whose stages are
      elementwise selects over static reshapes (O(n) temp per stage,
      XLA-fusable).
@@ -66,16 +66,11 @@ def chunked_sort(
     # chunk sorts must be stable when (a) the API contract is stable, or
     # (b) payloads ride: a pad row ties with a real all-ones key and an
     # unstable sort could swap them, dropping a real payload at the
-    # truncation. Keys-only unstable sorts skip the stability tax (the
-    # fused executor's stable mode carries an extra iota plane).
+    # truncation. Keys-only unstable sorts skip the stability tax.
     stable_chunks = stable or bool(payloads)
     runs = []
     for c in range(n_chunks):
         chunk = [p[c * m : (c + 1) * m] for p in planes]
-        # enter via comparative_sort so pow2 chunks ride the fused
-        # reversal-free executor (measured 1.1-1.6x over lax.sort)
-        # instead of forfeiting it in exactly the regime the memory gate
-        # engages
         cw, cp = comparative_sort(
             chunk[:n_words], chunk[n_words:], stable=stable_chunks
         )

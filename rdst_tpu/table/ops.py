@@ -1,14 +1,16 @@
 """Relational operators over columnar tables, built on the sort engine.
 
 The BASELINE.json operator set (sort-based hash aggregate, filter,
-sort-merge join), designed from measured TPU primitive costs
-(scripts/probe6.py):
+sort-merge join), built from sort-friendly primitives:
 
-  * scatter-add (segment_sum) : ~8.8 ns/el  — NEVER used
-  * cumsum                    : ~0.21 ns/el — the aggregation workhorse
-  * boundary gather (G << n)  : cheap       — segment extraction
-  * stable 1-bit partition    : ~2.6 ns/el  — filter/compaction
-  * searchsorted              : cheap       — merge-join probes
+  * cumsum                    — the aggregation workhorse (group sums are
+                                prefix-sum differences at boundaries)
+  * boundary gather (G << n)  — segment extraction
+  * stable 1-bit partition    — filter/compaction
+  * searchsorted              — merge-join probes
+
+Whether scatter-add segment sums beat cumsum differences on the GPU is
+open (ROADMAP.md, R-agg).
 
 Static-shape discipline: filter/group outputs keep length n with a valid
 ``count`` (JAX cannot return data-dependent shapes from jit); host
@@ -130,8 +132,7 @@ def group_aggregate(
     ``aggs``: {out_name: (column, op)} with op in sum/count/mean/min/max/
     first/last. Output table has static length n (one row per group packed
     to the front, `count` groups valid). Aggregations use the
-    cumsum-at-boundaries trick (40x faster than scatter-add segment_sum on
-    TPU, scripts/probe6.py).
+    cumsum-at-boundaries trick.
     """
     by_list = [by] if isinstance(by, str) else list(by)
     for out_name, (col, op) in aggs.items():

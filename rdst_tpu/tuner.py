@@ -9,7 +9,7 @@ bring back.
 The three built-in tuners reproduce the reference's decision ladders exactly
 (src/tuners/standard_tuner.rs:14-63, low_memory_tuner.rs:16-44,
 single_threaded_tuner.rs:15-43) — including the skew rule
-``any(count) >= (len/256)*2`` for inputs >= 5_000. On TPU each Algorithm
+``any(count) >= (len/256)*2`` for inputs >= 5_000. Here each Algorithm
 names an execution *plan* (see rdst_tpu.sorts) rather than a thread
 strategy; the thresholds still carve the same size/skew regimes.
 """
@@ -33,17 +33,15 @@ __all__ = [
 class Algorithm(enum.Enum):
     """The eight interchangeable sort plans (reference: src/tuner.rs:10-22).
 
-    What each name EXECUTES on TPU (the authoritative registry is
-    rdst_tpu/sorter.py:_register_default_plans; the mapping is
-    measurement-driven, see BENCH_NOTES.md and scripts/probe9.py):
-      COMPARATIVE    - XLA variadic sorting network (sorts/comparative.py)
+    What each name EXECUTES (the authoritative registry is
+    rdst_tpu/sorter.py:_register_default_plans):
+      COMPARATIVE    - XLA variadic lax.sort (sorts/comparative.py)
       LSB, MT_LSB    - level-compacted packed stable sort (sorts/lsb.py)
       LR_LSB, SKA    - same compaction; SKA may run unstable
       RECOMBINATING,
       SCANNING       - level-compaction pre-pass into the comparative
-                       network (the measured-fastest dense large-input
-                       plan on TPU; compaction narrows or drops words
-                       when the histogram allows)
+                       sort (compaction narrows or drops words when the
+                       histogram allows)
       MT_OOP         - bucketed MSB partition + batched per-bucket row
                        sorts + ragged writeback (sorts/msb.py)
       REGIONS        - low-memory chunked sort + bitonic merge tree

@@ -2,9 +2,9 @@
 
 Reference equivalents: the ``work_profiles`` cargo feature printing
 per-level picks (Cargo.toml:18, sorter.rs:78-79) and the
-scripts/profiling.rs marker binary. On TPU the profiling story is
-jax.profiler traces; ``profile_to`` wraps a region so kernels show up in
-TensorBoard/XProf.
+scripts/profiling.rs marker binary. Here the profiling story is
+jax.profiler traces; ``profile_to`` wraps a region so device kernels show
+up in TensorBoard/XProf.
 """
 from __future__ import annotations
 

@@ -1,14 +1,13 @@
 """Mesh scaling harness: distributed shuffle-sort throughput vs #devices.
 
 BASELINE.json's second north star is >=80% rows/s scaling efficiency from
-1 chip -> 1 host -> N hosts. This environment exposes ONE physical TPU
-chip, so real ICI/DCN scaling is unmeasurable; this harness produces the
-scaling CURVE on whatever devices exist:
+1 device -> 1 host -> N hosts. This harness produces the scaling CURVE on
+whatever devices exist:
 
-  * on a real multi-chip slice:  JAX_PLATFORMS=tpu python scripts/bench_mesh.py
+  * on a multi-GPU host:         python scripts/bench_mesh.py
   * on the virtual CPU mesh:     python scripts/bench_mesh.py --cpu 8
     (virtual devices share host cores — the numbers validate the harness
-    and the weak-scaling SHAPE, not absolute ICI throughput)
+    and the weak-scaling SHAPE, not device throughput)
 
 For each D in the ladder it weak-scales the input (n = per_device * D),
 runs the full distributed sort (local sort + psum histograms + balanced
@@ -64,7 +63,7 @@ def main():
             w, p, c = distributed_sort(
                 words, [], mesh=mesh, capacity_factor=2.0, stable=False
             )
-            return float(jnp.sum(c))  # host transfer forces completion
+            return jax.block_until_ready((w, c))
 
         run()  # compile
         t0 = time.perf_counter()
@@ -85,7 +84,8 @@ def main():
         }), flush=True)
 
     # 2-axis (host x chip) hierarchical exchange at the largest even
-    # split — the multi-host code shape (DCN blocks then ICI regroup)
+    # split — the multi-host code shape (per-host blocks, then a regroup
+    # within each host)
     if n_dev >= 4:
         from rdst_tpu.parallel import make_mesh_2d
 
@@ -105,7 +105,7 @@ def main():
                 words, [], mesh=mesh2, axis=mesh2.axis_names,
                 capacity_factor=2.0, stable=False,
             )
-            return float(jnp.sum(c))
+            return jax.block_until_ready((w, c))
 
         run2()
         t0 = time.perf_counter()

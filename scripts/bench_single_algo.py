@@ -7,7 +7,7 @@ step harness.  Also covers BASELINE config 1's three-tuner ladder
 (default / low-mem / single-threaded basic_sort, benches/basic_sort.rs:
 45-47) when ``--tuners`` is passed.
 
-Run on the TPU host:
+Run on the GPU host:
     python scripts/bench_single_algo.py [--types u32,u64] [--tuners]
 """
 import argparse
@@ -86,7 +86,7 @@ def main():
 
             def run():
                 out = sorter.run(nk_dev, [], stable=False, hist=hist)
-                float(jnp.sum(out[0].words[0][:4]).astype(jnp.float32))
+                jax.block_until_ready(out[0].words)
 
             run()  # compile/warm
             reps, ts = 3, []

@@ -1,12 +1,12 @@
-"""Capacity-factor study for the distributed shuffle (VERDICT r4 item 8).
+"""Capacity-factor study for the distributed shuffle.
 
 Measures, per input distribution on the virtual 8-device mesh, the
 actual per-device DEMAND ratio max(counts)/n_local — the minimum
 capacity_factor that would have fit — for both the 1-axis and the 2-axis
 (2, 4) hierarchical mesh, plus the stage-1 intermediate demand of the
 hierarchical exchange (found by bisecting hier_stage1_headroom against
-the poisoning signal). The committed table (BENCH_NOTES round 5) sets
-the shipped defaults:
+the poisoning signal). Its table (row counts, not times) sets the
+shipped defaults:
 
 * ``capacity_factor`` default — covers every benign distribution,
 * ``hier_stage1_headroom`` default — covers benign routing,

@@ -3,7 +3,7 @@
 profiling.rs (reference: scripts/profiling.rs:87-109) builds a
 profiler-friendly binary whose sleep markers separate input generation
 from the sort so a sampling profiler can window the region of interest.
-The TPU equivalent is a jax.profiler trace: this script captures one
+The JAX equivalent is a jax.profiler trace: this script captures one
 XProf/TensorBoard trace of the full dispatcher pipeline (histogram ->
 tuner -> plan kernels), with the same generate / sleep / sort / sleep
 phase structure so both wall-profilers and the trace viewer can isolate

@@ -131,8 +131,7 @@ class _Depth1Tuner:
 
 def test_bucketed_per_bucket_retune_differs_from_depth0(rng):
     """Skewed-inside-uniform: depth-1 picks must differ from the depth-0
-    pick AND from each other (hot bucket vs uniform buckets) — VERDICT
-    round-1 item 5's done-criterion."""
+    pick AND from each other (hot bucket vs uniform buckets)."""
     n = 200_000
     x = rng.integers(0, 2**32, size=n, dtype=np.int64).astype(np.uint32)
     # one hot KEY inside an otherwise uniform distribution: ~35% of all
@@ -152,8 +151,7 @@ def test_bucketed_per_bucket_retune_differs_from_depth0(rng):
 def test_bucketed_dominant_bucket_no_fallback(rng, capsys):
     """A 50% hot key no longer degrades MT_OOP to wholesale comparative:
     the dominant bucket is carved out (single-key skip) and the rest stays
-    batched — VERDICT round-1 item 10's done-criterion (ska_sort.rs:52-65
-    on one chip)."""
+    batched (ska_sort.rs:52-65 on one device)."""
     from rdst_tpu import config
 
     n = 120_000
@@ -193,8 +191,8 @@ def test_bucketed_dominant_multikey_carve(rng):
 
 def test_regions_low_mem_engages_chunked(rng, monkeypatch):
     """Under real memory pressure REGIONS takes the chunked low-memory
-    machinery (the resource contract); below it, the compaction plan
-    (probe12 P5: the merge tree costs ~3.5x a direct sort)."""
+    machinery (the resource contract); below it, the compaction plan,
+    which skips the merge tree's extra passes."""
     from rdst_tpu import config
 
     k = rng.integers(0, 2**32, size=40_000, dtype=np.int64).astype(np.uint32)

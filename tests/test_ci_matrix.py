@@ -47,7 +47,7 @@ def test_single_tile_regression(rng):
 
 
 def test_determinism(rng):
-    """Same input => bitwise identical output, every plan (the TPU
+    """Same input => bitwise identical output, every plan (the XLA
     equivalent of the reference's race-freedom-by-construction story,
     SURVEY.md §5)."""
     x = rng.integers(0, 2**32, 100_000, dtype=np.int64).astype(np.uint32)

@@ -1,10 +1,10 @@
 """Default-pipeline coverage through the DEVICE dispatcher.
 
-Round-2 verdict finding: with the host-native fast path on
-(config.host_sort_max = 2^18), every small numpy-input sort with a
-built-in tuner ran the C++ host sort, so the Sorter device flow
-(histogram -> tuner -> plan) had no default-flow coverage.  This suite
-pins host_sort_max = 0 so every sort takes the device path, and adds
+With the host-native fast path on (config.host_sort_max), every small
+numpy-input sort with a built-in tuner runs the C++ host sort, so the
+Sorter device flow (histogram -> tuner -> plan) would have no
+default-flow coverage.  This suite pins host_sort_max = 0 so every sort
+takes the device path, and adds
 >=1M-element runs at the sizes where the StandardTuner NATURALLY picks
 each large-regime plan (no pinned tuners):
 

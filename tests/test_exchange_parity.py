@@ -1,12 +1,12 @@
-"""Branch parity: the ragged_all_to_all exchange path vs the dense emulation.
+"""Branch parity: the ragged_all_to_all exchange path vs the dense one.
 
-XLA:CPU has no ragged-all-to-all, so the CPU mesh always takes the dense
-branch and the TPU environment has one chip — round 1 shipped with ZERO
-multi-device coverage of the ragged branch (VERDICT weak item 9). This
-suite closes that: it runs the REAL ragged-branch code (offset/size
-computation, ragged call arguments, segment validity mask) on the 8-device
-CPU mesh by substituting ``jax.lax.ragged_all_to_all`` with a traceable
-emulation that implements the primitive's documented semantics exactly:
+The dense all_to_all is the default on every backend; ``use_ragged=True``
+opts into the exact-size ragged exchange. XLA:CPU has no lowering for
+ragged-all-to-all, so this suite runs the REAL ragged-branch code
+(offset/size computation, ragged call arguments, segment validity mask)
+on the 8-device CPU mesh by substituting ``jax.lax.ragged_all_to_all``
+with a traceable emulation that implements the primitive's documented
+semantics exactly:
 
     output[output_offsets[s->me] : +recv_sizes[s]] =
         sender_s.operand[input_offsets[me] : +send_sizes[me]]
@@ -124,7 +124,7 @@ def test_ragged_vs_dense_exchange_parity(mesh, rng, patched_ragged,
 @pytest.mark.parametrize("stable", [True, False])
 @pytest.mark.parametrize("dist", ["uniform", "hotkey"])
 def test_overlapped_exchange_parity(mesh, rng, dist, stable):
-    """The two-phase overlapped exchange (sender-half split + fused merge
+    """The two-phase overlapped exchange (sender-half split + bitonic merge
     combine, SURVEY §7 step 6) is bitwise-identical to the sequential
     path in stable mode and key-identical in unstable mode."""
     n = 1 << 12
@@ -185,3 +185,84 @@ def test_ragged_vs_dense_partition_exchange(mesh, rng, patched_ragged):
         b2 = np.asarray(b).reshape(D, -1)
         for d in range(D):
             np.testing.assert_array_equal(a2[d, : cnts[d]], b2[d, : cnts[d]])
+
+
+def test_default_exchange_by_platform():
+    """The dense all_to_all is the default on every platform; the ragged
+    exchange is opt-in."""
+    import inspect
+
+    for fn in (distributed_sort, partition_exchange):
+        assert inspect.signature(fn).parameters["use_ragged"].default is False
+
+
+@pytest.mark.parametrize("stable", [True, False])
+@pytest.mark.parametrize("dist", ["uniform", "hotkey", "lowentropy"])
+def test_default_exchange_matches_dense(mesh, rng, patched_ragged, dist,
+                                        stable):
+    """The opt-in ragged exchange equals the default dense one."""
+    n = 1 << 12
+    words, pay = _planes(rng, n)
+    if dist == "hotkey":
+        words = [
+            jnp.concatenate([jnp.full((n // 2,), np.uint32(0xDEAD0000)),
+                             words[0][n // 2:]]),
+            words[1],
+        ]
+    elif dist == "lowentropy":
+        words = [w % np.uint32(13) for w in words]
+    kw = dict(mesh=mesh, capacity_factor=6.0, stable=stable)
+    w_r, p_r, c_r = distributed_sort(words, pay, use_ragged=True, **kw)
+    w_d, p_d, c_d = distributed_sort(words, pay, **kw)
+    np.testing.assert_array_equal(np.asarray(c_r), np.asarray(c_d))
+    cnts = np.asarray(c_r)
+    D = cnts.shape[0]
+    for a, b in zip(w_r + p_r, w_d + p_d):
+        a2 = np.asarray(a).reshape(D, -1)
+        b2 = np.asarray(b).reshape(D, -1)
+        for d in range(D):
+            if stable or a is not p_r[0]:
+                np.testing.assert_array_equal(a2[d, : cnts[d]],
+                                              b2[d, : cnts[d]])
+
+
+def test_default_partition_exchange_matches_dense(mesh, rng, patched_ragged):
+    n = 1 << 12
+    words, pay = _planes(rng, n, n_words=1)
+    _, _, _, part = distributed_sort(
+        words, pay, mesh=mesh, capacity_factor=3.0, stable=True,
+        split_uniform=False, return_partition=True,
+    )
+    qwords, qpay = _planes(rng, n, n_words=1)
+    kw = dict(mesh=mesh, capacity_factor=3.0, stable=True)
+    w_r, p_r, c_r = partition_exchange(qwords, qpay, part, use_ragged=True,
+                                       **kw)
+    w_d, p_d, c_d = partition_exchange(qwords, qpay, part, **kw)
+    np.testing.assert_array_equal(np.asarray(c_r), np.asarray(c_d))
+    cnts = np.asarray(c_r)
+    D = cnts.shape[0]
+    for a, b in zip(w_r + p_r, w_d + p_d):
+        a2 = np.asarray(a).reshape(D, -1)
+        b2 = np.asarray(b).reshape(D, -1)
+        for d in range(D):
+            np.testing.assert_array_equal(a2[d, : cnts[d]], b2[d, : cnts[d]])
+
+
+def test_default_exchange_repeat_call_identical(mesh, rng, patched_ragged):
+    """A second call on the same device arrays returns the same planes,
+    pads included, and leaves the inputs as they were, with either
+    exchange: the program holds no state between calls (chip_smoke.py
+    --four-cards checks the second call of every case)."""
+    n = 1 << 12
+    words, pay = _planes(rng, n)
+    before = [np.asarray(a).copy() for a in words + pay]
+    for use_ragged in (False, True):
+        kw = dict(mesh=mesh, capacity_factor=3.0, stable=True,
+                  use_ragged=use_ragged)
+        first = distributed_sort(words, pay, **kw)
+        second = distributed_sort(words, pay, **kw)
+        for a, b in zip(first[0] + first[1] + [first[2]],
+                        second[0] + second[1] + [second[2]]):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        for a, b in zip(words + pay, before):
+            np.testing.assert_array_equal(np.asarray(a), b)

@@ -1,10 +1,10 @@
-"""Large-size adversarial suites through the REAL dispatcher (VERDICT r3
-item 9): bimodal and bit-pattern inputs at 1M-5M, sizes where the carve-
-out / padding / chunk logic of the tuned plans runs at representative
-shape (the reference's release-mode suites go to 50M, test_utils.rs:
-63-146 + rust.yml:27-39; the 50M TPU run lives in scripts/
-tpu_acceptance.py).  No pinned tuner: the StandardTuner picks whatever
-the histogram says, exactly like production.
+"""Large-size adversarial suites through the REAL dispatcher: bimodal and
+bit-pattern inputs at 1M-5M, sizes where the carve-out / padding / chunk
+logic of the tuned plans runs at representative shape (the reference's
+release-mode suites go to 50M, test_utils.rs:63-146 + rust.yml:27-39;
+chip_smoke.py runs the plans at 2^24-2^28 on the GPU).  No pinned tuner:
+the StandardTuner picks whatever the histogram says, exactly like
+production.
 """
 import numpy as np
 import pytest

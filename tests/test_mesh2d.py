@@ -1,11 +1,11 @@
 """Hierarchical (host, chip) 2-axis mesh: the multi-host code shape.
 
-SURVEY.md §2.3 prescribes ICI within a slice and DCN across slices; the
-hierarchical exchange (shuffle._hier_exchange_and_finish) sends each
+The hierarchical exchange (shuffle._hier_exchange_and_finish) sends each
 destination HOST's rows as one contiguous block along the host axis
-(DCN-shaped traffic), then regroups along the chip axis (ICI).  On the
-virtual CPU mesh this exercises the full two-stage collective program —
-the same jitted code a real (H hosts) x (C chips) pod slice runs.
+(traffic between hosts), then regroups along the chip axis (within a
+host).  On the virtual CPU mesh this exercises the full two-stage
+collective program — the same jitted code an (H hosts) x (C devices)
+cluster runs.
 """
 import numpy as np
 import pytest

@@ -84,7 +84,6 @@ def test_default_config_no_x64():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["RDST_TPU_FORCE_INTERPRET"] = "1"
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run(
         [sys.executable, "-c", SCRIPT],

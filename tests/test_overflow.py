@@ -1,4 +1,4 @@
-"""Distributed skew/overflow hardening (VERDICT r4 item 4).
+"""Distributed skew/overflow hardening.
 
 The shuffle's static-capacity contract: extreme skew that a device's
 buffer cannot absorb must be DETECTED (OverflowError from gather_valid's

@@ -1,9 +1,10 @@
 """Distributed MSB shuffle sort on the virtual 8-device CPU mesh.
 
 The reference tests its multi-threaded algorithms on the host's thread pool
-(SURVEY.md §4); the TPU equivalent is shard_map over
+(SURVEY.md §4); the JAX equivalent is shard_map over
 xla_force_host_platform_device_count=8 so the psum/all_gather/
-ragged_all_to_all collectives execute for real.
+all_to_all collectives execute for real (XLA:CPU has no ragged_all_to_all;
+tests/test_exchange_parity.py covers that branch).
 """
 import numpy as np
 import pytest

@@ -154,8 +154,8 @@ def test_jax_input_returns_jax(rng):
 
 
 def test_narrow_payloads_ride_u16(rng):
-    """<=16-bit payloads ride as uint16 operands (probe12 P4: rider cost
-    is proportional to width) through every plan family."""
+    """<=16-bit payloads ride as uint16 operands (half the bytes of a
+    u32 rider) through every plan family."""
     import rdst_tpu as rt
     from rdst_tpu import config
 
